@@ -64,6 +64,9 @@ def main():
     ap.add_argument("--window", type=int, default=13000)
     ap.add_argument("--mesh", type=int, default=None)
     args = ap.parse_args()
+    from same_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from same_tpu import greedy_triangle_collapse, sliding_window_matching
 

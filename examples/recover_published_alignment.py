@@ -20,7 +20,7 @@ ref cell. The result: for each match in the published solution, WHICH ref
 cell was used and the TYPE of the query cell matched to it — which fully
 determines the published 1-NN accuracy metric (reproduced exactly for both
 datasets), giving a concrete target for the quality-parity analysis in
-BENCH_NOTES.md. The per-query-cell assignment is not in the figures, so
+docs/benchmarks.md. The per-query-cell assignment is not in the figures, so
 triangle violations are not recoverable — accuracy is.
 
 Usage: python examples/recover_published_alignment.py heart|tongue [--out CSV]

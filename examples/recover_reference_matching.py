@@ -12,7 +12,7 @@ the plot's affine data->figure transform can be fit exactly from the ref
 scatter, every line endpoint inverted back to data coordinates, and each
 endpoint snapped to the nearest query/ref cell. This reconstructs the
 published Gurobi solution, giving an exact objective/flip-structure target
-for the TPU solver (VERDICT round-2 item 2).
+for the device solver.
 
 Usage: python examples/recover_reference_matching.py [--out CSV]
 """

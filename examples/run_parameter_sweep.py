@@ -106,6 +106,9 @@ def main():
     ap.add_argument("--mesh", type=int, default=None,
                     help="shard windows over N devices")
     args = ap.parse_args()
+    from same_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     grid = []
     if args.sweep in ("knn", "both"):

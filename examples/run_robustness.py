@@ -122,6 +122,9 @@ def main():
                     help="heart data dir -> run the real paper sweep")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
+    from same_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.data:
         run_heart_sweep(args)

@@ -30,6 +30,9 @@ def main():
         help="write Fig-2-style panels (requires --out)",
     )
     args = ap.parse_args()
+    from same_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from same_tpu import (
         check_alignment,

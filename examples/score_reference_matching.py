@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Score the recovered Gurobi synthetic matching under the TPU solver's
+"""Score the recovered Gurobi synthetic matching under the device solver's
 exact objective (examples/recover_reference_matching.py output), giving the
-precise target the tearing solver must reach (VERDICT round-2 item 2).
+precise target the tearing solver must reach.
 
 Usage: python examples/score_reference_matching.py [--dp 10]
 """

@@ -1,12 +1,12 @@
-"""SAME-TPU: TPU-native spatial alignment of multimodal expression.
+"""SAME-TPU: accelerator-native spatial alignment of multimodal expression.
 
-A ground-up JAX/XLA/Pallas rebuild of SAME (rohitsinghlab/SAME): cells are
+A ground-up JAX/XLA rebuild of SAME (rohitsinghlab/SAME): cells are
 matched between serial tissue sections / modalities by a capacity-constrained
 assignment over a kNN candidate graph with Delaunay triangle-orientation
 ("space-tearing") penalties. The reference's Gurobi MIP with lazy callback
 cuts becomes an epsilon-scaling auction solver plus a vectorized
-orientation-cut separation loop, running as fixed-shape XLA computations;
-sliding windows shard across TPU meshes.
+orientation-cut separation loop, running as fixed-shape XLA computations on
+the GPU; sliding windows shard across a device mesh.
 
 Public API mirrors the reference's ``src/__init__.py`` export list so the
 paper notebooks and scripts run unmodified, plus the evaluation and
@@ -51,7 +51,7 @@ __all__ = [
     "MetaCell",
     "greedy_triangle_collapse",
     "unpack_metacell_matches",
-    # TPU-era additions + submodule utilities the notebooks use
+    # Solver-parameter alias + submodule utilities the notebooks use
     "init_solver_params",
     "find_knn_within_radius",
     "find_knn_with_cell_type_priority",

@@ -5,9 +5,9 @@ Array core + DataFrame wrappers preserving the reference API:
 reindex-to-participating-rows behavior, and
 ``find_knn_with_cell_type_priority`` (reference src/knn_utils.py:5-78).
 
-Two backends: a host cKDTree sweep (default; exact parity, used for small
-windows) and the tiled TPU brute-force kernel in ops/pairwise.py (used for
-large windows — O(n*m) MXU tiles beat host round-trips at window scale).
+Two backends: a host cKDTree sweep (default; exact parity) and the tiled
+device brute-force sweep in ops/pairwise.py (``backend="tpu"``, the device
+path's historical name; automatic only above n*m = 4e9).
 """
 
 from __future__ import annotations
@@ -37,20 +37,32 @@ def radius_knn(
         backend = os.environ.get("SAME_TPU_KNN", "")
     if not backend:
         # Host cKDTree queries are C-vectorized and handle 100k-point
-        # windows in well under a second; the device brute-force tiles only
-        # win when the deployment has real host<->device bandwidth (force
-        # with SAME_TPU_KNN=tpu), so the automatic cutover is set far above
-        # any window the sliding grid produces.
+        # windows in well under a second, so the automatic cutover to the
+        # device sweep (force it with SAME_TPU_KNN=tpu) sits far above any
+        # window the sliding grid produces.
         backend = "tpu" if n * len(ref_xy) > 4_000_000_000 else "host"
 
     if backend == "tpu":
         from .ops.pairwise import radius_knn_tpu
 
-        idx, dist, mask = radius_knn_tpu(
-            np.asarray(query_xy, np.float32), np.asarray(ref_xy, np.float32),
+        # The device selects in float32. Centering on the ref bounding box
+        # in float64 first halves the coordinates' rounding (~5e-4 at
+        # tissue scale), and the selection's distances are reported in
+        # float64, as the host path does: float32 rounding is far coarser
+        # than a close pair's distance.
+        origin = (
+            (ref_xy.min(axis=0) + ref_xy.max(axis=0)) / 2.0
+            if len(ref_xy) else np.zeros(2)
+        )
+        idx, _dist, mask = radius_knn_tpu(
+            np.asarray(query_xy - origin, np.float32),
+            np.asarray(ref_xy - origin, np.float32),
             float(radius), int(k),
         )
-        return np.asarray(idx), np.asarray(dist, np.float64), np.asarray(mask)
+        idx, mask = np.asarray(idx), np.asarray(mask)
+        sel = ref_xy[np.clip(idx, 0, None)]
+        dist = np.linalg.norm(sel - query_xy[:, None, :], axis=2)
+        return idx, np.where(mask, dist, np.inf), mask
 
     from scipy.spatial import cKDTree
 

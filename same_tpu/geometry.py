@@ -4,7 +4,7 @@ Delaunay triangulation is combinatorial and stays on host (Qhull via scipy by
 default, or the first-party C++ Bowyer-Watson backend in ``native/``); all
 per-triangle *tests* (edge length, min angle, same-type, orientation) are
 vectorized array ops so the same code path feeds both host preprocessing and
-the TPU solver.
+the device solver.
 
 Reference behaviors reproduced here:
 - ``filter_triangles_by_radius`` (reference src/helpers.py:233-395) including

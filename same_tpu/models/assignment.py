@@ -1,4 +1,4 @@
-"""Assignment-problem model: padded tensors for the TPU auction solver.
+"""Assignment-problem model: padded tensors for the device auction solver.
 
 This replaces the reference's Gurobi model object (reference
 src/same.py:1112-1197). The MIP structure is:
@@ -11,7 +11,7 @@ src/same.py:1112-1197). The MIP structure is:
 - soft congestion: pay penalty_coeff per match beyond the first on a ref
   (src/helpers.py:148-152 with the penalty term of src/same.py:1191-1197).
 
-TPU formulation: expand each ref j into ``limit_j`` unit-capacity *slots*;
+Device formulation: expand each ref j into ``limit_j`` unit-capacity *slots*;
 slot s > 0 carries an extra cost of ``penalty_coeff`` (filling slots in order
 reproduces penalty_coeff * max(0, u_j - 1) exactly). Each aligned point then
 chooses among K*L padded slot-columns plus an explicit no-match option at

@@ -1,4 +1,4 @@
-"""Batched triangle-orientation ops (JAX, runs on TPU).
+"""Batched triangle-orientation ops (JAX, runs on the device).
 
 The space-tearing machinery of SAME reduces to one primitive: the sign of the
 cross product ``(b-a) x (c-a)`` for a batch of triangles. The reference

@@ -1,11 +1,10 @@
-"""Tiled pairwise-distance / radius-kNN kernels (TPU path).
+"""Tiled brute-force radius-kNN on the device.
 
 Candidate generation in the reference is a per-point Python loop over a C++
-cKDTree (reference src/utils.py:709-742). On TPU the idiomatic formulation is
-a tiled brute-force sweep: squared distances via one rank-2 matmul-style
-expansion per row-tile (MXU-friendly), then ``lax.top_k`` per tile. Window
-problems are <= ~50k points per side, so O(n*m) tiles are cheap and entirely
-avoid host round-trips.
+cKDTree (reference src/utils.py:709-742). The device formulation is a tiled
+brute-force sweep: exact squared distances per row-tile, then ``lax.top_k``
+per tile. Window problems are <= ~50k points per side, so O(n*m) tiles are
+cheap and avoid host round-trips.
 """
 
 from __future__ import annotations
@@ -39,16 +38,16 @@ def radius_knn_tpu(
     q = jnp.pad(query_xy, ((0, n_pad), (0, 0)))
     q_tiles = q.reshape(-1, tile, 2)
 
-    ref_sq = (ref_xy**2).sum(axis=1)  # [m]
-
     def one_tile(qt):
-        # [tile, m] squared distances; inner product rides the MXU.
-        # precision=HIGHEST: the MXU's default bf16 inputs lose ~0.4% of the
-        # coordinate magnitude, which is catastrophic for nearby-point
-        # distances; full f32 keeps the expansion accurate.
-        inner = jnp.dot(qt, ref_xy.T, precision=jax.lax.Precision.HIGHEST)
-        d2 = (qt**2).sum(axis=1, keepdims=True) + ref_sq[None, :] - 2.0 * inner
-        d2 = jnp.maximum(d2, 0.0)
+        # [tile, m] squared distances from coordinate differences. The
+        # |q|^2 + |r|^2 - 2 q.r expansion (a matmul) cancels catastrophically
+        # in float32 at tissue-scale coordinates (~1e4): its absolute d^2
+        # error is ~eps32 * |q|^2, i.e. relative distance errors of 1e-4 and
+        # worse for near neighbours, and TF32 matmuls would add more. Two
+        # differences per pair keep every distance to float32 rounding.
+        dx = qt[:, 0:1] - ref_xy[None, :, 0]
+        dy = qt[:, 1:2] - ref_xy[None, :, 1]
+        d2 = dx * dx + dy * dy
         key = jnp.where(d2 <= r2, d2, jnp.inf)
         # lax.top_k is stable: equal keys resolve to the smaller ref index.
         neg_key, idx = jax.lax.top_k(-key, k)
@@ -66,9 +65,3 @@ def radius_knn_tpu(
     mask = mask.reshape(-1, k)[:n]
     return idx, dist, mask
 
-
-@functools.partial(jax.jit, static_argnames=("k",))
-def nearest_neighbors_tpu(query_xy: jax.Array, ref_xy: jax.Array, k: int = 1):
-    """k-NN without radius bound; returns (idx, dist) of shape [n, k]."""
-    idx, dist, _ = radius_knn_tpu(query_xy, ref_xy, jnp.inf, k)
-    return idx, dist

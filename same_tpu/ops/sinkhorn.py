@@ -1,4 +1,4 @@
-"""Entropic optimal transport (Sinkhorn) on TPU.
+"""Entropic optimal transport (Sinkhorn) on the device.
 
 Complementary first-order solver to the auction (solver/auction.py): where
 the auction produces integral matchings, Sinkhorn produces fractional

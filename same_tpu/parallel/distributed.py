@@ -1,11 +1,12 @@
 """Multi-host execution: jax.distributed initialization + window sharding.
 
 The reference is single-process (SURVEY §2.4: no NCCL/MPI/Gloo — windows are
-embarrassingly parallel and only the final merge is global). The TPU-native
-multi-host story keeps that shape:
+embarrassingly parallel and only the final merge is global). The multi-host
+story keeps that shape:
 
-1. every host calls :func:`init_distributed` (TPU pods auto-discover; CPU/GPU
-   fleets pass coordinator address + process counts);
+1. every host calls :func:`init_distributed` with the coordinator address
+   and process counts (clusters whose launcher sets them for JAX may pass
+   nothing);
 2. every host runs the same ``sliding_window_matching(..., mesh=global_mesh)``
    call — the window batch axis is laid out over the GLOBAL device mesh, so
    XLA partitions window solves across all hosts' devices with no
@@ -15,7 +16,7 @@ multi-host story keeps that shape:
    host 0 runs the Hopcroft-Karp merge over the gathered shards.
 
 Nothing here opens sockets itself — transport is jax.distributed's
-coordination service plus XLA collectives over ICI/DCN.
+coordination service plus XLA collectives (NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -32,9 +33,9 @@ def init_distributed(
 ) -> bool:
     """Initialize jax.distributed; returns True when running multi-process.
 
-    On TPU pods all arguments are auto-discovered (pass nothing). Returns
-    False without error when the runtime is single-process so callers can
-    share one code path::
+    Without arguments, JAX auto-discovers the cluster where its launcher
+    supports that. Returns False without error when the runtime is
+    single-process so callers can share one code path::
 
         from same_tpu.parallel import distributed, make_mesh
         distributed.init_distributed()

@@ -1,17 +1,17 @@
-"""Multi-chip window sharding: the primary parallel axis of SAME-TPU.
+"""Multi-device window sharding: the primary parallel axis of SAME-TPU.
 
 The reference processes sliding windows sequentially on one host (reference
 src/same.py:507-593) and merely documents a process-pool recipe
 (docs/tutorials/large_datasets.md:199-224). Windows are embarrassingly
-parallel, so the TPU-native design shards the *window batch* across a device
-mesh: problems are padded to shared shape buckets (models/assignment.py), the
+parallel, so this design shards the *window batch* across a device mesh:
+problems are padded to shared shape buckets (models/assignment.py), the
 auction solver is vmapped over the batch dimension, and the batch axis is
 laid out over the mesh with ``jax.sharding.NamedSharding`` — XLA then runs
 each device's windows locally with no cross-device communication until the
 final host-side merge (windows.merge_window_matches_unique_ref).
 
-``make_mesh``/``solve_window_batch`` work identically on a real TPU pod
-slice and on the virtual CPU mesh used in tests
+``make_mesh``/``solve_window_batch`` work identically on the GPUs of one
+host and on the virtual CPU mesh used in tests
 (``--xla_force_host_platform_device_count``).
 """
 
@@ -330,6 +330,7 @@ def _finish_groups(
             pw.stage_times["separation_time"] = t_sep / max(len(pws), 1)
             if "device_time" in data:
                 pw.stage_times["device_time"] = data["device_time"]
+            res.info["platform"] = data["platform"]
             # Gap certification (mirrors solve_prepared): the auction bounds
             # suboptimality by n * eps; on the rare epsilon-sizing miss,
             # re-solve this one window finer through the sequential path.

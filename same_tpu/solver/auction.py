@@ -1,6 +1,6 @@
 """Jacobi auction solver with epsilon scaling (JAX, jit-compiled).
 
-This is the TPU replacement for Gurobi's branch-and-bound core (reference
+This is the device replacement for Gurobi's branch-and-bound core (reference
 src/same.py:1240-1244). The window matching problem — after ref-capacity slot
 expansion (models/assignment.py) — is a pure assignment problem with an
 explicit per-bidder no-match (reservation) option, which forward auction
@@ -237,9 +237,9 @@ def _auction_run(
                 return assigned, owner, prices, any_win | jnp.any(win)
 
             # Fixed unroll instead of an inner while_loop: a 4th nesting
-            # level of lax.while explodes XLA compile time on TPU (>15 min
-            # for the fused tearing loop). Chains longer than 4 hops
-            # resolve across subsequent polish boundaries.
+            # level of lax.while multiplies XLA compile time of the fused
+            # tearing loop. Chains longer than 4 hops resolve across
+            # subsequent polish boundaries.
             carry = (assigned, owner, prices, jnp.bool_(False))
             for _ in range(4):
                 carry = reverse_once(carry)
@@ -312,9 +312,9 @@ def _auction_run(
         # it on no-match (measured on the ISS heart under an enabled stall
         # rule: 22 of 3162 cells). Gating the finish on completeness was
         # measured too: near-tie workloads rarely produce all-placed
-        # rounds, and the dp=25 LUAD bench window paid +45% device time
-        # for a stranding that never occurs there (10,641/10,641 matched
-        # either way). Resolution: the stall rule is an OPT-IN throughput
+        # rounds, and the dp=25 LUAD bench window paid many more bidding
+        # rounds for a stranding that never occurs there (10,641/10,641
+        # matched either way). Resolution: the stall rule is an OPT-IN throughput
         # dial (pipeline default obj_patience=0 keeps exact fixed-point
         # termination for parity-pinned data), and opting in accepts the
         # mid-chain-finish caveat.

@@ -3,7 +3,7 @@
 Reimplements the reference's Gurobi formulation exactly — binary match vars,
 congestion penalties, no-match vars, per-triangle tearing vars ``q_t``, and
 the lazy orientation-cut loop (reference src/same.py:621-704, 1112-1197;
-src/helpers.py:102-161) — on an open solver, so the TPU auction solver can be
+src/helpers.py:102-161) — on an open solver, so the device auction solver can be
 validated to objective parity on small instances without Gurobi. Not a
 production path: dense small problems only.
 """

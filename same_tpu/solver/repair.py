@@ -580,7 +580,7 @@ def _exact_component_repair(
     incremental state, so the global objective only improves.
 
     ``workers > 1`` solves groups of subproblems concurrently in threads
-    (scipy's HiGHS releases the GIL — the TPU-era analog of the reference's
+    (scipy's HiGHS releases the GIL — this pipeline's analog of the reference's
     32-worker precompute pool, src/helpers.py:485-495). Group members are
     vertex- AND ref-disjoint, so each member's extraction inputs are
     untouched by the others' applies: results are exactly what sequential

@@ -62,12 +62,23 @@ def _gp_displacement(points, length_scale, variance=0.05):
     sampling path the paper data came from (numpy SVD-based transform).
     """
     from scipy.stats import multivariate_normal as mvn
-    from sklearn.gaussian_process.kernels import RBF
 
     n = len(points)
-    K = variance * RBF(length_scale=length_scale)(points)
+    K = variance * _rbf_kernel(points, length_scale)
     K = K + 1e-6 * np.eye(n)
     return mvn.rvs(mean=np.zeros(n), cov=K, size=2).T
+
+
+def _rbf_kernel(points, length_scale):
+    """RBF Gram matrix, computed exactly as scikit-learn's ``RBF.__call__``
+    does (scaled squared-Euclidean ``pdist``, ``exp(-0.5 d)``, unit diagonal)
+    so the GP draws, and with them the paper data, stay bit-identical."""
+    from scipy.spatial.distance import pdist, squareform
+
+    d = pdist(np.asarray(points) / length_scale, metric="sqeuclidean")
+    K = squareform(np.exp(-0.5 * d))
+    np.fill_diagonal(K, 1)
+    return K
 
 
 def _soft_probs(classes, confident=True):

@@ -4,9 +4,10 @@ API-parity note: the reference (rohitsinghlab/SAME) exposes two override-able
 default dicts, ``init_gurobi_params`` (src/same.py:40-130) and
 ``init_optim_params`` (src/same.py:133-242). We keep the same key names and
 defaults so existing notebooks/scripts run unmodified. Gurobi-only tuning knobs
-(mip_focus, cuts, heuristics) are accepted and ignored by the TPU solver;
+(mip_focus, cuts, heuristics) are accepted and ignored by the auction solver;
 ``mip_gap`` and ``time_limit`` map onto the auction solver's optimality
-tolerance and wall-clock budget. Extra ``tpu_*`` keys control the TPU
+tolerance and wall-clock budget. Extra ``tpu_*`` keys (named for the
+accelerator the solver was first built for) control the device
 assignment solver and can be overridden the same way.
 """
 
@@ -19,14 +20,14 @@ def init_solver_params(**overrides) -> Dict[str, Any]:
     """Create default solver parameters for SAME-TPU optimization.
 
     Mirrors the reference's ``init_gurobi_params`` key set
-    (reference src/same.py:106-130) and adds TPU auction-solver knobs.
+    (reference src/same.py:106-130) and adds device auction-solver knobs.
 
     Keys
     ----
     time_limit : float — wall-clock budget per window solve (seconds).
     mip_gap : float — relative optimality tolerance; drives the final auction
         epsilon (n * eps_final <= mip_gap * |objective| heuristic).
-    mip_focus, cuts, heuristics : accepted for API parity; unused on TPU.
+    mip_focus, cuts, heuristics : accepted for API parity; unused by the auction solver.
     init_method : None | 'greedy' | 'hungarian' — warm-start for solver prices.
     init_big_m, init_hungarian_max_n : warm-start controls (parity).
     lazy_max_cuts : int or None — global cap on tearing cuts.
@@ -34,8 +35,8 @@ def init_solver_params(**overrides) -> Dict[str, Any]:
         while the flip fraction is at or below this (reference src/same.py:674-679).
     lazy_max_cuts_per_incumbent : int — per-round cap on new cuts.
 
-    TPU solver keys
-    ---------------
+    Device solver keys
+    ------------------
     tpu_eps_scaling : float — epsilon divisor between auction phases.
     tpu_eps_final : float — final epsilon (absolute, cost units).
     tpu_max_tear_rounds : int — outer separation-loop cap.
@@ -56,7 +57,7 @@ def init_solver_params(**overrides) -> Dict[str, Any]:
         "lazy_max_cuts": None,
         "lazy_allowed_flip_fraction": 0.05,
         "lazy_max_cuts_per_incumbent": 1000,
-        # TPU auction solver knobs. tpu_eps_final is an absolute floor on the
+        # Device auction solver knobs. tpu_eps_final is an absolute floor on the
         # final auction epsilon; the effective epsilon is scaled to the
         # problem via mip_gap (core.prepare_window), so this floor only
         # guards against degenerate zero-cost instances. It must sit below
@@ -79,8 +80,9 @@ def init_solver_params(**overrides) -> Dict[str, Any]:
         # quality/time dial of this pipeline (the analog of Gurobi's
         # time_limit). None = size-based auto heuristics (tearing.py).
         "tpu_repair_budget": None,
-        # "auto": fused device loop on accelerators / large problems, host
-        # separation loop otherwise. "force": always fused. False: never.
+        # "auto": fused device loop for windows of 512+ aligned points, host
+        # separation loop (solves still on the device) below. "force":
+        # always fused. False: never.
         "tpu_device_loop": "auto",
         # Windows in flight on the sequential path: one window's device
         # separation overlaps another's host repair (HiGHS releases the

@@ -179,7 +179,7 @@ def sliding_window_matching(
     """Match cells between datasets window by window; returns merged matches.
 
     See module docstring; the signature and semantics mirror the reference
-    (src/same.py:297-595) with ``solver_params`` as the TPU-era alias for
+    (src/same.py:297-595) with ``solver_params`` as this package's alias for
     ``gurobi_params``. Passing a ``jax.sharding.Mesh`` as ``mesh`` fans the
     per-window device solves out across its devices (the framework's primary
     parallel axis); the window decomposition is identical to the sequential

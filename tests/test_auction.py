@@ -116,7 +116,7 @@ def test_metacell_ref_capacity(rng):
 
 
 def test_auction_budget_insensitive_natural_stop(rng):
-    """Round budgets are a safety net, not the stop (VERDICT r4 item 4).
+    """Round budgets are a safety net, not the stop.
 
     A contested instance (more bidders than slots, near-tied costs) makes
     the forward auction churn holders within the eps tolerance; before the

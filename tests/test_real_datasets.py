@@ -69,10 +69,9 @@ def test_synthetic_paper_config_parity():
     # with 48 nodes under our objective. Idle-box measurements of this
     # exact config span 54-73 violation nodes / 12713-12997 objective
     # depending on device count and call path (1-dev direct 54; 1-dev
-    # windowed 64; 8-dev windowed 73; TPU 64) — search-trajectory noise
-    # within ~1% of objective, i.e. well inside the 2.5% mip_gap both
-    # solvers run at. Assert the band ceiling; BENCH_NOTES.md records the
-    # per-config numbers. NOTE: the wall-clock-budgeted HiGHS repair
+    # windowed 64; 8-dev windowed 73; accelerator 64) — search-trajectory
+    # noise within ~1% of objective, i.e. well inside the 2.5% mip_gap both
+    # solvers run at. Assert the band ceiling. NOTE: the wall-clock-budgeted HiGHS repair
     # degrades under host contention (a loaded 1-core box measures ~115)
     # — run this test on an otherwise idle machine.
     assert result["matches"] == 372
@@ -99,8 +98,8 @@ def _objective_dominance(art, rec_csv):
     Round 4 recovered the published Gurobi heart/tongue alignments from the
     reference figures (examples/recover_published_alignment.py, committed
     CSVs) and showed our solutions score better under the reference's own
-    exact objective. This turns that analysis into a regression gate
-    (VERDICT r4 item 5). The committed machinery takes the MOST FAVORABLE
+    exact objective. This turns that analysis into a regression gate.
+    The committed machinery takes the MOST FAVORABLE
     interpretation of the figure — the per-type min-cost assignment onto
     exactly the recovered ref cells (its flip count reproduces the
     published solution's: 582 vs the 579 recovered in round 4). Our
@@ -141,8 +140,7 @@ def _objective_dominance(art, rec_csv):
     reason="heart dataset not available locally",
 )
 def test_heart_paper_config_parity():
-    """Gate the heart dp=10/knn8/MS1 quality triple (VERDICT r3 item 5 +
-    r4 item 5).
+    """Gate the heart dp=10/knn8/MS1 quality triple.
 
     Published (docs/tutorials/heart_benchmark.html cell 21): 3162 matches,
     71.6% 1-NN accuracy, 5.0% same-type-skipped triangle violations.
@@ -173,8 +171,7 @@ def test_heart_paper_config_parity():
     reason="tongue dataset not available locally",
 )
 def test_tongue_paper_config_parity():
-    """Gate the tongue dp=10/knn8/MS1 quality triple (VERDICT r3 item 5 +
-    r4 item 5).
+    """Gate the tongue dp=10/knn8/MS1 quality triple.
 
     Published (docs/tutorials/tongue_benchmark.html cell 11): 3579 matches,
     84.2% 1-NN accuracy, 18.0% all-type triangle violations. Committed:

@@ -289,3 +289,77 @@ def test_plateau_tol_both_loops(rng):
         # 50% margin, so rounds 2-3 exhaust the patience.
         assert res_wide.tear_rounds <= 3, loop
         assert res_wide.tear_rounds <= res_tight.tear_rounds, loop
+
+
+def test_device_loop_fault_raises(rng, monkeypatch):
+    """A fault in the fused device loop propagates: there is no host-loop
+    fallback, and a later solve tries the device loop again."""
+    import same_tpu.solver.tearing as tearing
+    import same_tpu.solver.tearing_device as tearing_device
+
+    (pairs, costs, n, limits, nm_cost, tris, weights, src, ref_xy) = _swap_instance(
+        rng
+    )
+    problem = build_assignment_problem(pairs, costs, n, n, limits, 100.0, nm_cost)
+    calls = []
+
+    def fault(*args, **kwargs):
+        calls.append(1)
+        raise RuntimeError("device fault")
+
+    def host_loop(*args, **kwargs):
+        raise AssertionError("host separation loop must not run")
+
+    monkeypatch.setattr(tearing_device, "run_tearing_device", fault)
+    monkeypatch.setattr(tearing, "solve_assignment", host_loop)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="device fault"):
+            solve_with_tearing(
+                problem, costs, tris, weights, src, ref_xy,
+                delaunay_penalty=2.0, penalty_coeff=100.0,
+                allowed_flip_fraction=0.0, eps_final=1e-3,
+                device_loop="force",
+            )
+    assert len(calls) == 2
+
+
+# sha256 over every host-loop incumbent (match_ref, match_pair, flipped and
+# checked bytes with their dtypes, then flip fraction and auction rounds) on
+# the rng(0) swap instance, recorded when the loop still pulled each round as
+# one packed uint8 buffer.
+_HOST_LOOP_INCUMBENTS = (
+    3, "2755064e45e788d83390f4dc352ff58a34cec35229679a256ffdab0b0081f190"
+)
+
+
+def test_host_loop_incumbents_unchanged(rng, monkeypatch):
+    """The host loop's per-round transfer yields the incumbents it always did."""
+    import hashlib
+
+    import same_tpu.solver.tearing as tearing
+
+    (pairs, costs, n, limits, nm_cost, tris, weights, src, ref_xy) = _swap_instance(
+        rng
+    )
+    problem = build_assignment_problem(pairs, costs, n, n, limits, 100.0, nm_cost)
+    captured = {}
+    finish = tearing._finish_solve
+
+    def spy(*args, **kwargs):
+        captured["incumbents"] = args[10]
+        return finish(*args, **kwargs)
+
+    monkeypatch.setattr(tearing, "_finish_solve", spy)
+    solve_with_tearing(
+        problem, costs, tris, weights, src, ref_xy,
+        delaunay_penalty=2.0, penalty_coeff=100.0, allowed_flip_fraction=0.0,
+        eps_final=1e-3, max_tear_rounds=30, device_loop=False,
+        plateau_patience=None,
+    )
+    h = hashlib.sha256()
+    for mr, mp, fl, ck, ff, r in captured["incumbents"]:
+        for a in (mr, mp, fl, ck):
+            h.update(np.ascontiguousarray(a).tobytes())
+            h.update(str(a.dtype).encode())
+        h.update(repr((float(ff), int(r))).encode())
+    assert (len(captured["incumbents"]), h.hexdigest()) == _HOST_LOOP_INCUMBENTS
